@@ -1,0 +1,4 @@
+from badger_amcl.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

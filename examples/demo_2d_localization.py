@@ -16,7 +16,8 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", default=None,
+                    help="JAX platform; default: the accelerator if present")
     ap.add_argument("--kidnap", action="store_true", help="teleport the robot mid-run")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--particles", type=int, default=2000)
@@ -38,17 +39,17 @@ def main():
         jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from badger_amcl_tpu.maps import CellState, OccupancyMap2D
-    from badger_amcl_tpu.pf import PFParams, init_with_gaussian, resample, sensor_update
-    from badger_amcl_tpu.pf.filter import ResampleModel, max_weight_cluster
-    from badger_amcl_tpu.sensors import (
+    from badger_amcl.maps import CellState, OccupancyMap2D
+    from badger_amcl.pf import PFParams, init_with_gaussian, resample, sensor_update
+    from badger_amcl.pf.filter import ResampleModel, max_weight_cluster
+    from badger_amcl.sensors import (
         OdomModel,
         PlanarScan,
         PlanarScanParams,
         motion_update,
         planar_likelihood,
     )
-    from badger_amcl_tpu.sensors.raycast import calc_range
+    from badger_amcl.sensors.raycast import calc_range
 
     # --- world: 12x12 m room with pillars, 0.05 m cells ------------------
     # Pillars are kept clear of both scripted arcs (plain start and

@@ -15,7 +15,8 @@ import tempfile
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", default=None,
+                    help="JAX platform; default: the accelerator if present")
     ap.add_argument("--kidnap", action="store_true")
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--particles", type=int, default=2000)
@@ -29,9 +30,9 @@ def main():
 
     import numpy as np
 
-    from badger_amcl_tpu.cli import load_config
-    from badger_amcl_tpu.node import make_node
-    from badger_amcl_tpu.sim import Sim2D, make_room_grid
+    from badger_amcl.cli import load_config
+    from badger_amcl.node import make_node
+    from badger_amcl.sim import Sim2D, make_room_grid
 
     pose_log = []
     tf_log = []

@@ -37,7 +37,8 @@ def _voxel_world(size=10.0, res=0.1, height=1.2, seed=7):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", default=None,
+                    help="JAX platform; default: the accelerator if present")
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args()
 
@@ -46,11 +47,11 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from badger_amcl_tpu.cli import load_config
-    from badger_amcl_tpu.maps.octree_io import read_bt, write_bt
-    from badger_amcl_tpu.node import make_node
-    from badger_amcl_tpu.node.messages import OctomapMsg
-    from badger_amcl_tpu.sim import Sim3D
+    from badger_amcl.cli import load_config
+    from badger_amcl.maps.octree_io import read_bt, write_bt
+    from badger_amcl.node import make_node
+    from badger_amcl.node.messages import OctomapMsg
+    from badger_amcl.sim import Sim3D
 
     pts, res = _voxel_world()
 

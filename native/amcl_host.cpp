@@ -1,4 +1,4 @@
-// Native host-runtime kernels for badger_amcl_tpu.
+// Native host-runtime kernels for badger_amcl.
 //
 // The reference's heavy host-side startup work is C++ (priority-queue
 // brushfire EDT over the whole map, occupancy_map.cpp:138-242 and
@@ -6,7 +6,7 @@
 // This library keeps that work native in the rebuild: the exact
 // Felzenszwalb-Huttenlocher separable EDT in cell units, 2D and 3D,
 // parallelized over independent rows with std::thread. Python binds via
-// ctypes (badger_amcl_tpu/utils/native.py); numpy fallbacks exist, so the
+// ctypes (badger_amcl/utils/native.py); numpy fallbacks exist, so the
 // library is a startup-latency optimization, not a correctness dependency.
 //
 // Build: make -C native   ->  libamcl_host.so
@@ -24,7 +24,7 @@ namespace {
 // Large finite sentinel for "no source" cells. True infinity would produce
 // inf - inf = NaN in the parabola-intersection formula and poison the lower
 // envelope; a finite sentinel keeps the arithmetic well-defined (matches the
-// numpy implementation in badger_amcl_tpu/maps/edt.py).
+// numpy implementation in badger_amcl/maps/edt.py).
 constexpr double kNoSource = 1e18;
 constexpr double kInf = std::numeric_limits<double>::infinity();
 
@@ -131,61 +131,6 @@ void amcl_edt_3d(const uint8_t* occupied, int64_t a, int64_t b, int64_t c,
   }
   edt_axis(out, b * c, a, 1, b * c);  // along the first axis
   for (int64_t i = 0; i < n; i++) out[i] = std::sqrt(out[i]);
-}
-
-// Per-angle range image (maps/range_image.py contract): for each of K
-// directions theta_k = 2*pi*k/K, the distance in cells from every map cell
-// to the first blocked cell along theta_k (out-of-bounds blocked; blocked
-// start -> 0). blocked: uint8 (h, w); out: uint16 (K, h, w). Parallel over
-// angles.
-void amcl_range_image(const uint8_t* blocked, int64_t h, int64_t w,
-                      int64_t k_angles, uint16_t* out) {
-  const int64_t d = int64_t(std::ceil(std::sqrt(double(h * h + w * w)))) + 2;
-  const double cy = (h - 1) / 2.0, cx = (w - 1) / 2.0, rc = (d - 1) / 2.0;
-  const unsigned hw = std::max(1u, std::thread::hardware_concurrency());
-  const unsigned n_threads = unsigned(std::min<int64_t>(hw, k_angles));
-  std::vector<std::thread> threads;
-  threads.reserve(n_threads);
-  for (unsigned tix = 0; tix < n_threads; tix++) {
-    threads.emplace_back([=]() {
-      std::vector<int32_t> dist(d * d);
-      for (int64_t k = tix; k < k_angles; k += n_threads) {
-        const double th = 2.0 * M_PI * double(k) / double(k_angles);
-        const double c = std::cos(th), s = std::sin(th);
-        // rotated frame: march along +u; scan each row right-to-left
-        for (int64_t v = 0; v < d; v++) {
-          int32_t next = 0;  // distance to next blocked at the row's end: 0
-          const double vv = double(v) - rc;
-          // incremental coordinates: p(u) = p(d-1) - step * (d-1-u)
-          double px = (double(d - 1) - rc) * c - vv * s + cx;
-          double py = (double(d - 1) - rc) * s + vv * c + cy;
-          for (int64_t u = d - 1; u >= 0; u--, px -= c, py -= s) {
-            const int64_t pi = int64_t(std::floor(px + 0.5));
-            const int64_t pj = int64_t(std::floor(py + 0.5));
-            bool blk = pi < 0 || pi >= w || pj < 0 || pj >= h;
-            if (!blk) blk = blocked[pj * w + pi] != 0;
-            next = blk ? 0 : (next >= 65535 ? 65535 : next + 1);
-            dist[v * d + u] = next;
-          }
-        }
-        // sample back at map cells
-        uint16_t* slab = out + k * h * w;
-        for (int64_t j = 0; j < h; j++) {
-          const double yr = double(j) - cy;
-          double su = (0.0 - cx) * c + yr * s + rc;
-          double sv = -(0.0 - cx) * s + yr * c + rc;
-          for (int64_t i = 0; i < w; i++, su += c, sv -= s) {
-            int64_t si = int64_t(std::floor(su + 0.5));
-            int64_t sj = int64_t(std::floor(sv + 0.5));
-            si = std::min(std::max(si, int64_t(0)), d - 1);
-            sj = std::min(std::max(sj, int64_t(0)), d - 1);
-            slab[j * w + i] = uint16_t(dist[sj * d + si]);
-          }
-        }
-      }
-    });
-  }
-  for (auto& th : threads) th.join();
 }
 
 }  // extern "C"

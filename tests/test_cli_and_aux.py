@@ -8,11 +8,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from badger_amcl_tpu import cli
-from badger_amcl_tpu.config import AMCLConfig, OdomModelType, PlanarModelType
-from badger_amcl_tpu.node import checkpoint, ros_bridge
-from badger_amcl_tpu.pf import PFParams, init_with_gaussian
-from badger_amcl_tpu.utils.profiling import PhaseTimer
+from badger_amcl import cli
+from badger_amcl.config import AMCLConfig, OdomModelType, PlanarModelType
+from badger_amcl.node import checkpoint, ros_bridge
+from badger_amcl.pf import PFParams, init_with_gaussian
+from badger_amcl.utils.profiling import PhaseTimer
 import pytest
 
 
@@ -63,7 +63,7 @@ def test_reference_param_spellings_load_unmodified():
 def test_reconfigure_restore_defaults():
     """restore_defaults reverts to the construction snapshot
     (node.cpp:192-206)."""
-    from badger_amcl_tpu.node.node_2d import Node2D
+    from badger_amcl.node.node_2d import Node2D
 
     cfg = AMCLConfig.for_2d(min_particles=20, max_particles=80)
     node = Node2D(cfg)
@@ -179,7 +179,7 @@ def test_ros_bridge_translations():
 
 
 def test_octomap_lut_debug_cloud():
-    from badger_amcl_tpu.maps import OctoMap3D
+    from badger_amcl.maps import OctoMap3D
 
     pts = np.array([[0.5, 0.5, 0.5]])
     m = OctoMap3D.from_occupied_points(

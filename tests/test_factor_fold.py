@@ -1,134 +1,13 @@
-"""Folded recalcWeight factors (planar_likelihood fold_factors=True).
-
-On the corr backends the per-particle map factor is folded into the corr
-kernel's table read (one fused take returns p * factor;
-ops/corr_kernel._folded_take). Contract: the fold is EXACT —
-take(combine(tbl) * fwin) picks single elements, so the folded product must
-bit-equal the two-read product — and sensor_update(state, p*mf, None) must
-equal sensor_update(state, p, mf) (pf/filter.py sensor_update docstring).
-
-Runs in interpreter mode on CPU (tests/conftest.py).
-"""
+"""sensor_update(state, p*mf, None) == sensor_update(state, p, mf): the
+map factor may be applied folded into p or separately (pf/filter.py
+sensor_update docstring)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from badger_amcl_tpu.maps import CellState, OccupancyMap2D
-from badger_amcl_tpu.pf import filter as pf_filter
-from badger_amcl_tpu.pf.types import PFParams
-from badger_amcl_tpu.sensors.planar import (
-    PlanarScan, PlanarScanParams, bake_corr_texture, bake_factor_texture,
-    planar_likelihood,
-)
-
-BACKEND = "pallas_corr_interpret"
-
-
-@pytest.fixture(scope="module")
-def big_map():
-    rng = np.random.default_rng(23)
-    n = 448
-    cells = np.full((n, n), int(CellState.FREE), np.int8)
-    cells[0:2, :] = cells[-2:, :] = int(CellState.OCCUPIED)
-    cells[:, 0:2] = cells[:, -2:] = int(CellState.OCCUPIED)
-    for _ in range(12):
-        cx, cy = rng.integers(20, n - 28, 2)
-        cells[cy : cy + 6, cx : cx + 6] = int(CellState.OCCUPIED)
-    return OccupancyMap2D.from_cells(cells, 0.05).with_distance_field(2.0)
-
-
-def _scan(b=64, range_max=6.0):
-    angles = jnp.linspace(-2.2, 2.2, b).astype(jnp.float32)
-    ranges = jnp.clip(2.0 + jnp.sin(angles * 5.0), 0.3, range_max - 0.1)
-    return PlanarScan(ranges=ranges, angles=angles,
-                      range_max=jnp.float32(range_max))
-
-
-def _poses(n, seed, center=(0.0, 0.0), xy_sig=0.15, yaw_sig=0.04):
-    key = jax.random.PRNGKey(seed)
-    return jnp.concatenate(
-        [jnp.array(center) + xy_sig * jax.random.normal(key, (n, 2)),
-         yaw_sig * jax.random.normal(key, (n, 1))],
-        axis=1,
-    ).astype(jnp.float32)
-
-
-def _params(**kw):
-    # non-trivial factors so the fold actually multiplies something
-    base = dict(non_free_space_factor=jnp.float32(0.6),
-                non_free_space_radius=jnp.float32(0.5),
-                off_map_factor=jnp.float32(0.3))
-    base.update(kw)
-    return PlanarScanParams(**base)
-
-
-def _both(omap, params, scan, poses, model):
-    n = poses.shape[0]
-    args = (omap, params, scan, poses, jnp.ones((n,), bool), jnp.int32(n),
-            model)
-    p_f, mf_f = planar_likelihood(*args, backend=BACKEND, fold_factors=True)
-    p2, mf2 = planar_likelihood(*args, backend=BACKEND, fold_factors=False)
-    return p_f, mf_f, p2, mf2
-
-
-@pytest.mark.parametrize("model", [
-    "likelihood_field", "likelihood_field_prob", "likelihood_field_gompertz",
-])
-def test_folded_equals_two_read(big_map, model):
-    params = _params()
-    scan = _scan()
-    omap = bake_factor_texture(
-        bake_corr_texture(big_map, params, float(scan.range_max), model),
-        params)
-    poses = _poses(600, 1)
-    p_f, mf_f, p2, mf2 = _both(omap, params, scan, poses, model)
-    assert mf_f is None and mf2 is not None
-    np.testing.assert_array_equal(np.asarray(p_f),
-                                  np.asarray(p2) * np.asarray(mf2))
-
-
-def test_folded_offmap_particles_take_generic_arm(big_map):
-    """Any off-map particle must route the read through the classic two-read
-    arm so it gets off_map_factor, not the clipped border cell's factor."""
-    params = _params()
-    scan = _scan()
-    omap = bake_factor_texture(
-        bake_corr_texture(
-            big_map, params, float(scan.range_max), "likelihood_field"),
-        params)
-    # cloud near the right map edge (world origin is the map center) so the
-    # corr window still fits with a few particles pushed just off-map —
-    # exercising _folded_take's generic arm, not the envelope fallback
-    half = 448 * 0.05 / 2.0
-    poses = _poses(600, 2, center=(half - 0.7, 0.0))
-    poses = poses.at[:5, 0].set(half + 0.3)
-    p_f, mf_f, p2, mf2 = _both(omap, params, scan, poses, "likelihood_field")
-    prod = np.asarray(p2) * np.asarray(mf2)
-    np.testing.assert_array_equal(np.asarray(p_f), prod)
-    # the off-map particles really got the off-map factor
-    assert np.allclose(np.asarray(mf2)[:5], 0.3)
-
-
-def test_folded_quantized_backend(big_map):
-    params = _params()
-    scan = _scan()
-    omap = bake_factor_texture(
-        bake_corr_texture(
-            big_map, params, float(scan.range_max), "likelihood_field"),
-        params)
-    poses = _poses(400, 3)
-    n = poses.shape[0]
-    args = (omap, params, scan, poses, jnp.ones((n,), bool), jnp.int32(n),
-            "likelihood_field")
-    p_f, mf_f = planar_likelihood(
-        *args, backend="pallas_corr_q_interpret", fold_factors=True)
-    p2, mf2 = planar_likelihood(
-        *args, backend="pallas_corr_q_interpret", fold_factors=False)
-    assert mf_f is None
-    np.testing.assert_array_equal(np.asarray(p_f),
-                                  np.asarray(p2) * np.asarray(mf2))
+from badger_amcl.pf import filter as pf_filter
+from badger_amcl.pf.types import PFParams
 
 
 def test_sensor_update_folded_equivalence():

@@ -11,8 +11,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from badger_amcl_tpu.pf import cluster, filter as pf_filter, kld
-from badger_amcl_tpu.pf.types import PFParams
+from badger_amcl.pf import cluster, filter as pf_filter, kld
+from badger_amcl.pf.types import PFParams
 
 
 def _state(m, seed, spread):

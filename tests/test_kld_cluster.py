@@ -10,9 +10,9 @@ import math
 import jax.numpy as jnp
 import numpy as np
 
-from badger_amcl_tpu.pf import kld
-from badger_amcl_tpu.pf.cluster import compute_cluster_stats
-from badger_amcl_tpu.pf.types import PFParams
+from badger_amcl.pf import kld
+from badger_amcl.pf.cluster import compute_cluster_stats
+from badger_amcl.pf.types import PFParams
 import pytest
 
 
@@ -184,7 +184,7 @@ def test_sorted_path_fallback_beyond_unique_cap(monkeypatch):
     branch and still produce identical results."""
     import jax
 
-    from badger_amcl_tpu.pf import cluster as cl
+    from badger_amcl.pf import cluster as cl
 
     monkeypatch.setattr(cl, "MAX_UNIQUE_BINS", 16)
     n = 400

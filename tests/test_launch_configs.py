@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import yaml
 
-from badger_amcl_tpu.config import AMCLConfig, ResampleModelType, PlanarModelType
+from badger_amcl.config import AMCLConfig, ResampleModelType, PlanarModelType
 
 EXAMPLES = os.path.join(os.path.dirname(__file__), "..", "examples")
 REF_EXAMPLES = "/root/reference/examples"
@@ -138,8 +138,8 @@ def test_3d_production_operating_point():
 
 @pytest.mark.slow
 def test_e2e_on_shipped_2d_config():
-    from badger_amcl_tpu.node import make_node
-    from badger_amcl_tpu.sim import Sim2D, make_room_grid
+    from badger_amcl.node import make_node
+    from badger_amcl.sim import Sim2D, make_room_grid
 
     cfg, warnings = _from_params_strict(_load_yaml("amcl_2d.yaml"))
     assert warnings == []

@@ -10,8 +10,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from badger_amcl_tpu.maps import CellState, OccupancyMap2D, grid_from_probabilities
-from badger_amcl_tpu.maps.edt import edt_2d
+from badger_amcl.maps import CellState, OccupancyMap2D, grid_from_probabilities
+from badger_amcl.maps.edt import edt_2d
 
 
 def test_conversion_roundtrip_matches_reference_case():

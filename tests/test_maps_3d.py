@@ -8,8 +8,8 @@ quantized storage contract (octomap.cpp:315-350).
 import numpy as np
 import jax.numpy as jnp
 
-from badger_amcl_tpu.maps import OctoMap3D
-from badger_amcl_tpu.maps.octree_io import read_bt, write_bt
+from badger_amcl.maps import OctoMap3D
+from badger_amcl.maps.octree_io import read_bt, write_bt
 import pytest
 
 
@@ -104,7 +104,7 @@ def test_bt_roundtrip(tmp_path):
 def test_ot_roundtrip_matches_binary_twin(tmp_path):
     """A full-format (.ot) fixture decodes to the same voxel set as its
     binary (.bt) twin (the binary-or-full branch, node_3d.cpp:262-284)."""
-    from badger_amcl_tpu.maps.octree_io import read_octree, read_ot, write_ot
+    from badger_amcl.maps.octree_io import read_octree, read_ot, write_ot
 
     rng = np.random.default_rng(7)
     centers = (rng.integers(-20, 20, (50, 3)) + 0.5) * 0.1
@@ -128,10 +128,10 @@ def test_node3d_accepts_full_octomap_msg():
     (fullMsgToMap branch, node_3d.cpp:270-273)."""
     import io
 
-    from badger_amcl_tpu.config import AMCLConfig
-    from badger_amcl_tpu.maps.octree_io import write_ot
-    from badger_amcl_tpu.node.messages import OctomapMsg
-    from badger_amcl_tpu.node.node_3d import Node3D
+    from badger_amcl.config import AMCLConfig
+    from badger_amcl.maps.octree_io import write_ot
+    from badger_amcl.node.messages import OctomapMsg
+    from badger_amcl.node.node_3d import Node3D
 
     centers = np.array([[0.05, 0.05, 0.05], [0.35, 0.25, 0.15]])
     import tempfile, os

@@ -1,4 +1,4 @@
-"""MXU-backed gather/segment ops (ops/mxu_gather.py): exactness contracts.
+"""One-hot contraction gather/segment ops (ops/mxu_gather.py): exactness contracts.
 
 One-hot contractions sum exactly one selected term, so results must be
 BIT-EQUAL to the scalar gather / scatter-add equivalents (f32 values ride
@@ -8,7 +8,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from badger_amcl_tpu.ops import mxu_gather
+from badger_amcl.ops import mxu_gather
 
 
 def test_gather_rows_exact():
@@ -47,13 +47,3 @@ def test_segment_sums_small_drops_out_of_range():
     got = np.asarray(mxu_gather.segment_sums_small(vals, seg, 4))
     np.testing.assert_array_equal(got, [[1.0, 1.0, 0.0, 0.0]])
 
-
-def test_window_values_exact():
-    rng = np.random.default_rng(2)
-    win = rng.normal(size=(64, 128)).astype(np.float32)
-    r = rng.integers(0, 64, size=500).astype(np.int32)
-    c = rng.integers(0, 128, size=500).astype(np.int32)
-    out = np.asarray(
-        mxu_gather.window_values(jnp.asarray(win), jnp.asarray(r), jnp.asarray(c))
-    )
-    np.testing.assert_array_equal(out, win[r, c])

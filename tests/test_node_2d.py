@@ -8,10 +8,10 @@ import math
 import numpy as np
 import pytest
 
-from badger_amcl_tpu.config import AMCLConfig
-from badger_amcl_tpu.node import make_node
-from badger_amcl_tpu.node.messages import PoseWithCovarianceStamped
-from badger_amcl_tpu.sim import Sim2D, make_room_grid
+from badger_amcl.config import AMCLConfig
+from badger_amcl.node import make_node
+from badger_amcl.node.messages import PoseWithCovarianceStamped
+from badger_amcl.sim import Sim2D, make_room_grid
 
 
 def _mk(config_overrides=None, sim_overrides=None, start=(-3.0, -3.0, 0.3)):
@@ -88,7 +88,7 @@ def test_outputs_published():
     assert clouds[-1].poses.shape[1] == 3
     # map->odom tf invariant: composing with odometry *at the pose's stamp*
     # reproduces the published pose (the whole point of the map->odom TF)
-    from badger_amcl_tpu.node.transforms import Transform
+    from badger_amcl.node.transforms import Transform
 
     tf = tfs[-1]
     t_map_odom = Transform(tf.translation, tf.rotation)
@@ -209,7 +209,7 @@ def test_watchdog():
 def test_multi_scanner_registry():
     """Two scanner frames get independent extrinsics and update flags
     (node_2d.cpp:428-488)."""
-    from badger_amcl_tpu.node.transforms import Transform
+    from badger_amcl.node.transforms import Transform
 
     sim, node = _mk()
     sim.tf.set_static("base_link", "laser2", Transform.from_xyzrpy(0.3, 0.0, 0.0))

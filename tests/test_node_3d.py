@@ -5,12 +5,12 @@ import math
 import numpy as np
 import pytest
 
-from badger_amcl_tpu.config import AMCLConfig
-from badger_amcl_tpu.node import make_node
-from badger_amcl_tpu.node.messages import OccupancyGrid, OctomapMsg
-from badger_amcl_tpu.node.transforms import Transform
-from badger_amcl_tpu.sim import Sim3D
-from badger_amcl_tpu.sensors.point_cloud import point_cloud_likelihood  # noqa: F401
+from badger_amcl.config import AMCLConfig
+from badger_amcl.node import make_node
+from badger_amcl.node.messages import OccupancyGrid, OctomapMsg
+from badger_amcl.node.transforms import Transform
+from badger_amcl.sim import Sim3D
+from badger_amcl.sensors.point_cloud import point_cloud_likelihood  # noqa: F401
 
 
 def _voxel_room(size=8.0, res=0.1, height=1.0, seed=5):
@@ -152,7 +152,7 @@ def test_octomap_binary_bt_through_node(setup_3d, tmp_path):
     node_3d.cpp:262-284)."""
     import os
 
-    from badger_amcl_tpu.maps.octree_io import write_bt
+    from badger_amcl.maps.octree_io import write_bt
 
     sim, cfg, pts, res = setup_3d
     path = str(tmp_path / "world.bt")

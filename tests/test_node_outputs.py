@@ -3,9 +3,9 @@ through the node, phase timers."""
 
 import numpy as np
 
-from badger_amcl_tpu.config import AMCLConfig
-from badger_amcl_tpu.node import make_node
-from badger_amcl_tpu.sim import Sim2D, make_room_grid
+from badger_amcl.config import AMCLConfig
+from badger_amcl.node import make_node
+from badger_amcl.sim import Sim2D, make_room_grid
 import pytest
 
 
@@ -44,7 +44,7 @@ def test_alt_frame_outputs():
     assert alt_poses[-1].frame_id == "map_alt"
     assert alt_clouds[-1].frame_id == "map_alt"
     # alt-frame initial poses are accepted after frame rewrite (resolveFrameId)
-    from badger_amcl_tpu.node.messages import PoseWithCovarianceStamped
+    from badger_amcl.node.messages import PoseWithCovarianceStamped
 
     msg = PoseWithCovarianceStamped.make(sim.t, "map_alt", [1.0, 1.0, 0.0],
                                          np.array([0.05, 0.05, 0.02]))
@@ -66,7 +66,7 @@ def test_tf_reverse():
     assert (f.frame_id, f.child_frame_id) == ("map", "odom")
     assert (r.frame_id, r.child_frame_id) == ("odom", "map")
     # the two transforms are inverses of each other (same sim/seed)
-    from badger_amcl_tpu.node.transforms import Transform
+    from badger_amcl.node.transforms import Transform
 
     tf_fwd = Transform(f.translation, f.rotation)
     tf_rev = Transform(r.translation, r.rotation)

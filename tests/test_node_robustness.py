@@ -6,9 +6,9 @@ import math
 
 import numpy as np
 
-from badger_amcl_tpu.config import AMCLConfig
-from badger_amcl_tpu.node import make_node
-from badger_amcl_tpu.sim import Sim2D, make_room_grid
+from badger_amcl.config import AMCLConfig
+from badger_amcl.node import make_node
+from badger_amcl.sim import Sim2D, make_room_grid
 import pytest
 
 

@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from badger_amcl_tpu.pf import PFParams, init_with_poses
-from badger_amcl_tpu.sensors import OdomModel, motion_update
+from badger_amcl.pf import PFParams, init_with_poses
+from badger_amcl.sensors import OdomModel, motion_update
 
 N = 20000
 PARAMS = PFParams(max_samples=N)

@@ -7,13 +7,13 @@ import os
 import numpy as np
 import yaml
 
-from badger_amcl_tpu.node.messages import (
+from badger_amcl.node.messages import (
     COVARIANCE_AA,
     COVARIANCE_XX,
     COVARIANCE_YY,
     PoseWithCovarianceStamped,
 )
-from badger_amcl_tpu.node.persistence import load_pose_from_file, save_pose_to_file
+from badger_amcl.node.persistence import load_pose_from_file, save_pose_to_file
 
 DEFAULT = (0.25, 0.25, (math.pi / 12) ** 2)
 

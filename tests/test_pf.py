@@ -9,14 +9,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from badger_amcl_tpu.pf import (
+from badger_amcl.pf import (
     PFParams,
     init_with_gaussian,
     init_with_poses,
     resample,
     sensor_update,
 )
-from badger_amcl_tpu.pf.filter import ResampleModel, update_converged
+from badger_amcl.pf.filter import ResampleModel, update_converged
 
 PARAMS = PFParams(min_samples=20, max_samples=400)
 

@@ -10,8 +10,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from badger_amcl_tpu.maps import CellState, OccupancyMap2D
-from badger_amcl_tpu.sensors.planar import (
+from badger_amcl.maps import CellState, OccupancyMap2D
+from badger_amcl.sensors.planar import (
     PlanarScan,
     PlanarScanParams,
     apply_gompertz,
@@ -109,7 +109,7 @@ def test_beam_model_golden(box_map):
     params = PlanarScanParams()
     # facing +x from origin: wall of pillar at x = 0.8..1.2 -> first
     # occupied cell at world x=0.85ish; compute via the map itself
-    from badger_amcl_tpu.sensors.raycast import calc_range
+    from badger_amcl.sensors.raycast import calc_range
 
     map_range = float(calc_range(box_map, jnp.array(0.0), jnp.array(0.0), jnp.array(0.0), 5.0))
     obs = 1.0
@@ -126,7 +126,7 @@ def test_beam_model_golden(box_map):
 def test_beam_model_max_range_reading(box_map):
     params = PlanarScanParams()
     # beam pointing +x with obs == range_max: z_max term, no z_rand term
-    from badger_amcl_tpu.sensors.raycast import calc_range
+    from badger_amcl.sensors.raycast import calc_range
 
     map_range = float(calc_range(box_map, jnp.array(0.0), jnp.array(0.0), jnp.array(0.0), 5.0))
     scan = _mk_scan([5.0], [0.0], range_max=5.0)
@@ -241,7 +241,7 @@ def test_map_factors_windowed_matches_classic(box_map):
     per-particle gather path (sensors/planar.py map_factors), baked or not."""
     import jax
 
-    from badger_amcl_tpu.sensors.planar import bake_factor_texture
+    from badger_amcl.sensors.planar import bake_factor_texture
 
     params = PlanarScanParams(
         off_map_factor=jnp.float32(0.1),

@@ -3,7 +3,7 @@
 
 The prob model multiplies up to B per-beam probabilities
 (planar_scanner.cpp:325-533); in f32 every particle's product underflows to
-0 past ~60 beams, so the filter uniform-resets forever at TPU beam counts.
+0 past ~60 beams, so the filter uniform-resets forever at 720 beams.
 The log pipeline keeps log weights through normalization and the recovery
 averages in log domain. The default exp path is untouched (bit-equal parity
 rows preserved); these tests prove the log path against an f64 CPU oracle
@@ -16,8 +16,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from badger_amcl_tpu.pf import filter as pf_filter
-from badger_amcl_tpu.pf.types import PFParams
+from badger_amcl.pf import filter as pf_filter
+from badger_amcl.pf.types import PFParams
 
 
 def _mk_state(m, seed=0):
@@ -107,8 +107,8 @@ def test_full_model_log_path_720_beams_vs_f64_oracle():
     """End-to-end: planar_likelihood(prob, prob_log_space=True) at 720
     beams through sensor_update_log vs an f64 numpy oracle of the same
     model (distance field gathers + log mixture)."""
-    from badger_amcl_tpu.maps import CellState, OccupancyMap2D
-    from badger_amcl_tpu.sensors.planar import (
+    from badger_amcl.maps import CellState, OccupancyMap2D
+    from badger_amcl.sensors.planar import (
         PlanarScan, PlanarScanParams, planar_likelihood)
 
     rng = np.random.default_rng(5)
@@ -183,9 +183,9 @@ def test_node_log_space_knob_tracks(tmp_path):
     linear path would uniform-reset every scan)."""
     import math
 
-    from badger_amcl_tpu.config import AMCLConfig
-    from badger_amcl_tpu.node import make_node
-    from badger_amcl_tpu.sim import Sim2D, make_room_grid
+    from badger_amcl.config import AMCLConfig
+    from badger_amcl.node import make_node
+    from badger_amcl.sim import Sim2D, make_room_grid
 
     cfg = AMCLConfig(
         laser_model_type="likelihood_field_prob",

@@ -12,8 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from badger_amcl_tpu.maps import CellState, OccupancyMap2D
-from badger_amcl_tpu.sensors.raycast import calc_range
+from badger_amcl.maps import CellState, OccupancyMap2D
+from badger_amcl.sensors.raycast import calc_range
 
 
 @pytest.fixture(scope="module")

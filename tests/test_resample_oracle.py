@@ -13,9 +13,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from badger_amcl_tpu.pf import kld
-from badger_amcl_tpu.pf.filter import _pick_indices
-from badger_amcl_tpu.pf.types import PFParams
+from badger_amcl.pf import kld
+from badger_amcl.pf.filter import _pick_indices
+from badger_amcl.pf.types import PFParams
 import pytest
 
 HIST = (64, 64, 40)

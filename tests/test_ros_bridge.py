@@ -9,9 +9,9 @@ import types
 
 import numpy as np
 
-from badger_amcl_tpu.maps.octree_io import read_octree, write_bt, write_ot
-from badger_amcl_tpu.node import ros_bridge as rb
-from badger_amcl_tpu.node import messages as msgs
+from badger_amcl.maps.octree_io import read_octree, write_bt, write_ot
+from badger_amcl.node import ros_bridge as rb
+from badger_amcl.node import messages as msgs
 
 
 def _ns(**kw):
@@ -181,7 +181,7 @@ class _FakeNode:
     merge_params semantics are exercised end-to-end."""
 
     def __init__(self):
-        from badger_amcl_tpu.config import AMCLConfig
+        from badger_amcl.config import AMCLConfig
 
         self.config = AMCLConfig.for_2d(min_particles=100, max_particles=5000)
         self.calls = []

@@ -5,7 +5,7 @@ import math
 import numpy as np
 import pytest
 
-from badger_amcl_tpu.node.transforms import (
+from badger_amcl.node.transforms import (
     Transform,
     TransformBuffer,
     TransformLookupError,
@@ -32,8 +32,8 @@ def test_compose_inverse():
 def test_upside_down_mount_flips_yaw():
     """A roll-pi extrinsic makes scanner yaw run backwards in the base frame —
     the case getAngleStats exists for (node_2d.cpp:497-532)."""
-    import badger_amcl_tpu.node.scan_prep as sp
-    from badger_amcl_tpu.node.messages import LaserScan
+    import badger_amcl.node.scan_prep as sp
+    from badger_amcl.node.messages import LaserScan
 
     scan = LaserScan(0.0, "laser", angle_min=-1.0, angle_increment=0.02,
                      range_min=0.1, range_max=10.0, ranges=np.ones(100))
@@ -66,8 +66,8 @@ def test_buffer_static_timed_and_inverse():
 
 
 def test_range_clamping():
-    import badger_amcl_tpu.node.scan_prep as sp
-    from badger_amcl_tpu.node.messages import LaserScan
+    import badger_amcl.node.scan_prep as sp
+    from badger_amcl.node.messages import LaserScan
 
     scan = LaserScan(0.0, "laser", -1.0, 0.1, range_min=0.5, range_max=10.0,
                      ranges=np.array([0.2, 0.5, 3.0, 12.0]))
@@ -78,8 +78,8 @@ def test_range_clamping():
 
 
 def test_decimation_strides():
-    import badger_amcl_tpu.node.scan_prep as sp
-    from badger_amcl_tpu.config import PlanarModelType
+    import badger_amcl.node.scan_prep as sp
+    from badger_amcl.config import PlanarModelType
 
     # LF: step = (100-1)//(30-1) = 3 -> 34 beams (reference quirk: > max_beams)
     idx = sp.decimation_indices(100, 30, PlanarModelType.LIKELIHOOD_FIELD)
